@@ -11,8 +11,8 @@ in tools/bigbuild.py --blocks).
 import numpy as np
 import pytest
 
-from columba_tpu import cli
-from columba_tpu.index.blocked import partition_sequences
+from columba_jax import cli
+from columba_jax.index.blocked import partition_sequences
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_partition_sequences():
 
 
 def test_blocked_meta(workload):
-    from columba_tpu.index.blocked import load_blocked_meta
+    from columba_jax.index.blocked import load_blocked_meta
 
     _, _, blk, _ = workload
     meta = load_blocked_meta(blk)

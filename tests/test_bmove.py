@@ -11,10 +11,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from columba_tpu.core import alphabet
-from columba_tpu.index.bmove import BMoveIndex, build_bmove_from_codes
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.ops import bextend, blocate, extend, locate
+from columba_jax.core import alphabet
+from columba_jax.index.bmove import BMoveIndex, build_bmove_from_codes
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.ops import bextend, blocate, extend, locate
 
 from tests.conftest import make_genome, sample_reads
 
@@ -105,8 +105,8 @@ def test_pipeline_parity_rlc_vs_vanilla(pair, rng, metric, switchpoint):
     """Full ALL-mode pipeline on the RLC back-end reports the identical
     occurrence set as the Vanilla back-end (the reference's cross-flavor
     conformance discipline)."""
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, fm, bm = pair
     k = 2
@@ -123,8 +123,8 @@ def test_pipeline_parity_rlc_vs_vanilla(pair, rng, metric, switchpoint):
 def test_dynamic_partitioning_rlc(pair, rng):
     """Dynamic partitioning runs on the RLC back-end (char-seeded, 8-wide
     ranges) and stays lossless: every Vanilla-uniform occurrence is found."""
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, fm, bm = pair
     k = 2
@@ -140,8 +140,8 @@ def test_dynamic_partitioning_rlc(pair, rng):
 
 
 def test_exact_mode_rlc(pair, rng):
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, fm, bm = pair
     reads = sample_reads(rng, genome, num=16, length=50, max_err=0)
@@ -155,8 +155,8 @@ def test_locate_pan_genome_bounded(rng):
     """Locate on a pan-genome (20 near-identical haplotypes -> huge BWT
     runs) stays correct; the in-run stride samples bound every LF-walk at
     LOCATE_STRIDE steps regardless of run length."""
-    from columba_tpu.index.bmove import LOCATE_STRIDE
-    from columba_tpu.index.suffix import suffix_array
+    from columba_jax.index.bmove import LOCATE_STRIDE
+    from columba_jax.index.suffix import suffix_array
 
     unit = rng.integers(0, 4, size=2000).astype(np.uint8)
     copies = [unit]
@@ -185,8 +185,8 @@ def test_phi_tables_identity(rng):
     """phi(SA[i]) == SA[i-1] and phinv(SA[i]) == SA[i+1] exactly, from the
     run-boundary piece tables (the r-index property textless locate rests
     on; reference src/bmove/plcp.h:59-130)."""
-    from columba_tpu.index.bmove import build_bmove_from_codes
-    from columba_tpu.index.suffix import suffix_array
+    from columba_jax.index.bmove import build_bmove_from_codes
+    from columba_jax.index.suffix import suffix_array
 
     unit = rng.integers(0, 4, size=300).astype(np.uint8)
     genome = np.concatenate([unit] * 4 + [rng.integers(0, 4, 500)]).astype(
@@ -215,8 +215,8 @@ def test_textless_matches_with_text(pair, rng, metric):
     with-text choice by a tie among equally-optimal alignment starts
     (<= 1 position at k=2, checked tighter in
     test_textless_edit_begins_exact)."""
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, fm, bm = pair
     tl = BMoveIndex.from_arrays(build_bmove_from_codes(genome,
@@ -228,7 +228,7 @@ def test_textless_matches_with_text(pair, rng, metric):
     o_ref, _ = pipeline.match_all(bm, reads, get_scheme("kuch1", k),
                                   metric=metric, redundancy_filter=False,
                                   switchpoint=0)
-    from columba_tpu.index.bmove import build_bmove_from_codes as _b
+    from columba_jax.index.bmove import build_bmove_from_codes as _b
 
     arrays_tl = _b(genome, textless=True)
     o_tl, s_tl = pipeline.match_all(
@@ -260,7 +260,7 @@ def test_textless_matches_with_text(pair, rng, metric):
 def test_textless_index_bytes_scale_with_runs(rng):
     """On a pan-genome the textless index is r-scaled: dropping text +
     stride samples removes the n-scaled components."""
-    from columba_tpu.index.bmove import build_bmove_from_codes
+    from columba_jax.index.bmove import build_bmove_from_codes
 
     unit = rng.integers(0, 4, size=1000).astype(np.uint8)
     genome = np.tile(unit, 512)  # r ~ r(unit) + copies while n grows 512x
@@ -283,8 +283,8 @@ def test_textless_k0_and_collection_collapse(pair, rng):
     """Round-5 refusal lifts: k=0 exact matching runs through the
     frontier-only textless pass (begins exact — no indels), and a scheme
     COLLECTION collapses to its first scheme (selection is perf-only)."""
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, fm, bm = pair
     arrays_tl = build_bmove_from_codes(genome, textless=True)
@@ -316,9 +316,9 @@ def test_textless_edit_begins_exact(pair, rng):
     achieves the reported distance (the matched-length witness carried by
     the executor's track_arg shadow slots; the reference carries the
     matchedStr length per DFS leaf, src/indexinterface.h:294-304)."""
-    from columba_tpu.core import alphabet
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.core import alphabet
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, fm, bm = pair
     arrays_tl = build_bmove_from_codes(genome, textless=True)

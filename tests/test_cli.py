@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from columba_tpu import cli
+from columba_jax import cli
 
 SCHEMES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "schemes")
@@ -77,7 +77,7 @@ def test_dynamic_selection_folder(workload):
 
 
 def test_discordant_flag_plumbing(workload):
-    from columba_tpu.search import paired
+    from columba_jax.search import paired
 
     # default matches the reference: no discordant pairing without -D
     assert paired.PairedConfig().discordant is False
@@ -87,15 +87,15 @@ def test_seeded_replacement_matches_reference_rng():
     """Replacement seed string is bit-exact with libstdc++
     minstd_rand(42) + uniform_int_distribution(0,3) (verified against a
     compiled C++ probe)."""
-    from columba_tpu.index.build import _minstd_uniform4
+    from columba_jax.index.build import _minstd_uniform4
 
     assert "".join(map(str, _minstd_uniform4(24))) == \
         "021123220032103133221331"
 
 
 def test_seeded_replacement_runs_cycle(tmp_path):
-    from columba_tpu.core import alphabet
-    from columba_tpu.index.build import _minstd_uniform4, preprocess_fasta
+    from columba_jax.core import alphabet
+    from columba_jax.index.build import _minstd_uniform4, preprocess_fasta
 
     fa = tmp_path / "n.fa"
     fa.write_text(">c\nAANNNNNNCNNA\n")
@@ -110,7 +110,7 @@ def test_seeded_replacement_runs_cycle(tmp_path):
 def test_sa_subsample_equivalent(tmp_path):
     """Aligning with -s F on a fine-sampled index = aligning on an index
     built at F."""
-    from columba_tpu.index.build import build_index_from_codes, subsample_sa
+    from columba_jax.index.build import build_index_from_codes, subsample_sa
 
     rng = np.random.default_rng(2)
     g = rng.integers(0, 4, 5000).astype(np.uint8)
@@ -179,8 +179,8 @@ def test_paired_end_variable_read_lengths(workload):
     """PE pairs bucketed by (len1, len2): mixed-length input maps and the
     SAM stays in input order (reference streams any record length,
     src/fastq.cpp:43-241)."""
-    from columba_tpu.core import alphabet
-    from columba_tpu.io import fastq
+    from columba_jax.core import alphabet
+    from columba_jax.io import fastq
 
     wd, idx, _ = workload
     rng = np.random.default_rng(23)
@@ -218,9 +218,9 @@ def test_paired_end_variable_read_lengths(workload):
 def test_paired_best_rows_vs_python_parity(workload, monkeypatch):
     """PE BEST through the CLI: the array-native rows path (native parse +
     PERowsBest + native emit) must produce byte-identical SAM to the
-    pure-Python object path (COLUMBA_TPU_NO_NATIVE)."""
-    from columba_tpu.core import alphabet
-    from columba_tpu.io import fastq
+    pure-Python object path (COLUMBA_JAX_NO_NATIVE)."""
+    from columba_jax.core import alphabet
+    from columba_jax.io import fastq
 
     wd, idx, _ = workload
     rng = np.random.default_rng(77)
@@ -251,8 +251,8 @@ def test_paired_best_rows_vs_python_parity(workload, monkeypatch):
     import sys
 
     out_p = str(wd / "pe_python.sam")
-    env = dict(os.environ, COLUMBA_TPU_NO_NATIVE="1")
-    subprocess.run([sys.executable, "-m", "columba_tpu.cli"]
+    env = dict(os.environ, COLUMBA_JAX_NO_NATIVE="1")
+    subprocess.run([sys.executable, "-m", "columba_jax.cli"]
                    + argv + ["-o", out_p], check=True, env=env,
                    capture_output=True, timeout=600)
     assert _body(out_n) == _body(out_p)

@@ -6,17 +6,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from columba_tpu.core import alphabet
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.search import pipeline
-from columba_tpu.search.scheme import get_scheme
+from columba_jax.core import alphabet
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.search import pipeline
+from columba_jax.search.scheme import get_scheme
 
 from tests.conftest import sample_reads
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_match_equals_single(small_index, rng):
-    from columba_tpu.dist import mesh as dmesh
+    from columba_jax.dist import mesh as dmesh
 
     genome, arrays = small_index
     index = FMIndex.from_arrays(arrays)
@@ -57,11 +57,11 @@ def test_sharded_match_seeded_crossover(small_index):
     import jax.numpy as jnp
     import numpy as np
 
-    from columba_tpu.dist import mesh as dmesh
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.index.kmer import build_kmer_table, table_k
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.dist import mesh as dmesh
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.index.kmer import build_kmer_table, table_k
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, arrays = small_index
     index = FMIndex.from_arrays(arrays)
@@ -101,8 +101,8 @@ def test_sharded_match_seeded_crossover(small_index):
 def test_sharded_match_rlc_backend(small_index, rng):
     """The RLC (b-move) index shards through the same data-parallel path
     (the index pytree is replicated regardless of flavor)."""
-    from columba_tpu.dist import mesh as dmesh
-    from columba_tpu.index.bmove import BMoveIndex, build_bmove_from_codes
+    from columba_jax.dist import mesh as dmesh
+    from columba_jax.index.bmove import BMoveIndex, build_bmove_from_codes
 
     genome, _ = small_index
     index = BMoveIndex.from_arrays(build_bmove_from_codes(genome))

@@ -1,6 +1,6 @@
 """Byte-parity of the native (C++) SAM emitter vs the pure-Python path.
 
-The native emitter (columba_tpu/native/emit.cpp via io/emit.py) must
+The native emitter (columba_jax/native/emit.cpp via io/emit.py) must
 produce byte-identical SAM to strategy.emit_sam for every configuration:
 plain / XA-folded, with / without CIGAR, with / without unmapped records,
 kb 0..4, multi-sequence texts with boundary-trimmed occurrences, reads
@@ -10,14 +10,14 @@ with N characters, and repeat-heavy multimaps.
 import numpy as np
 import pytest
 
-from columba_tpu.core import alphabet
-from columba_tpu.index.build import build_index_from_codes, decoded_text
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.io import emit
-from columba_tpu.io.fastq import ReadRecord
-from columba_tpu.search import pipeline
-from columba_tpu.search.scheme import get_scheme
-from columba_tpu.search.strategy import MappedRead, emit_sam
+from columba_jax.core import alphabet
+from columba_jax.index.build import build_index_from_codes, decoded_text
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.io import emit
+from columba_jax.io.fastq import ReadRecord
+from columba_jax.search import pipeline
+from columba_jax.search.scheme import get_scheme
+from columba_jax.search.strategy import MappedRead, emit_sam
 
 from .conftest import make_genome, sample_reads
 
@@ -132,7 +132,7 @@ def test_parity_boundary(fm3, rng):
 
 def _pe_both(fm3, recs1, recs2, mapped, kb):
     genome, arrays, index = fm3
-    from columba_tpu.search import paired
+    from columba_jax.search import paired
 
     want = "".join(paired.emit_sam_paired(recs1, recs2, mapped, arrays,
                                           kb))
@@ -164,7 +164,7 @@ def test_pe_parity(fm3, rng, mode):
     """Native PE emitter vs paired.emit_sam_paired: byte parity across
     concordant pairs, multimapped repeat pairs, unpaired and unmapped."""
     genome, arrays, index = fm3
-    from columba_tpu.search import paired, strategy
+    from columba_jax.search import paired, strategy
 
     r1, r2 = _pe_sample(rng, genome, n=14, m=50, insert=180, n_junk=4)
     pcfg = paired.PairedConfig(orientation="fr", min_insert=100,
@@ -187,7 +187,7 @@ def test_pe_parity(fm3, rng, mode):
 
 def test_pe_parity_fuzz(fm3, rng):
     genome, arrays, index = fm3
-    from columba_tpu.search import paired
+    from columba_jax.search import paired
 
     for trial in range(5):
         n = int(rng.integers(1, 16))

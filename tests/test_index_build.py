@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from columba_tpu.core import alphabet
-from columba_tpu.index.build import (
+from columba_jax.core import alphabet
+from columba_jax.index.build import (
     build_index_from_codes,
     load_index,
     pack_2bit,
     save_index,
     unpack_2bit,
 )
-from columba_tpu.index.suffix import naive_suffix_array, suffix_array
+from columba_jax.index.suffix import naive_suffix_array, suffix_array
 
 
 @pytest.mark.parametrize("n", [1, 2, 10, 257, 1000])
@@ -24,7 +24,7 @@ def test_suffix_array_matches_naive(n, method, rng):
         except RuntimeError:
             pytest.skip("native sais unavailable")
     else:
-        from columba_tpu.index.suffix import _prefix_doubling
+        from columba_jax.index.suffix import _prefix_doubling
 
         sa = _prefix_doubling(codes)
     naive = naive_suffix_array(codes)
@@ -42,7 +42,7 @@ def test_native_vs_numpy_large(rng):
         sa_n = suffix_array(codes, method="native")
     except RuntimeError:
         pytest.skip("native sais unavailable")
-    from columba_tpu.index.suffix import _prefix_doubling
+    from columba_jax.index.suffix import _prefix_doubling
 
     np.testing.assert_array_equal(sa_n, _prefix_doubling(codes))
 
@@ -114,7 +114,7 @@ def test_save_load_roundtrip(tmp_path, rng):
 def test_preprocess_fasta(tmp_path):
     fa = tmp_path / "g.fa"
     fa.write_text(">chr1 desc\nACGTN\nNNGT\n>chr2\nacgt\n")
-    from columba_tpu.index.build import preprocess_fasta
+    from columba_jax.index.build import preprocess_fasta
 
     codes, names, starts = preprocess_fasta([str(fa)], seed=1)
     assert names == ["chr1", "chr2"]
@@ -123,3 +123,72 @@ def test_preprocess_fasta(tmp_path):
     # non-N chars preserved
     np.testing.assert_array_equal(codes[:4], alphabet.encode("ACGT"))
     np.testing.assert_array_equal(codes[9:13], alphabet.encode("ACGT"))
+
+
+@pytest.fixture(scope="module")
+def upload_pair(small_index):
+    from columba_jax.index.fmindex import FMIndex
+
+    _, arrays = small_index
+    return arrays, FMIndex.from_arrays(arrays)
+
+
+def _fm_host(arrays, field):
+    """The host array FMIndex.from_arrays uploads for `field`."""
+    from columba_jax.index.fmindex import _pad_reshape4
+
+    u32 = lambda a: np.asarray(a, dtype=np.uint32)  # noqa: E731
+    if field == "occ_fused":
+        fused = np.zeros((2 * arrays.occ.shape[0], 16), np.uint32)
+        fused[:, :4] = np.concatenate([arrays.occ, arrays.rocc])
+        fused[:, 4:12] = np.concatenate(
+            [arrays.bwt, arrays.rbwt]).reshape(-1, 8)
+        return fused
+    if field == "text":
+        t = u32(arrays.text)
+        return np.concatenate(
+            [t, np.zeros((-len(t)) % 128 + 128, np.uint32)]).reshape(-1, 128)
+    if field == "dollar":
+        return u32([arrays.dollar_fwd, arrays.dollar_rev])
+    if field == "sa_bits":
+        return _pad_reshape4(arrays.sa_bits)
+    if field == "n_arr":
+        return u32([arrays.n, arrays.n + 1])
+    return u32(getattr(arrays, field))
+
+
+@pytest.mark.parametrize("field", [
+    "occ_fused", "counts", "dollar", "text", "sa_samples", "sa_bits",
+    "sa_bits_rank", "n_arr",
+])
+def test_fmindex_upload_matches_host(upload_pair, field):
+    """Each device array equals its host array in values, dtype, shape."""
+    arrays, index = upload_pair
+    dev = np.asarray(getattr(index, field))
+    host = _fm_host(arrays, field)
+    assert dev.dtype == host.dtype and dev.shape == host.shape
+    assert np.array_equal(dev, host)
+
+
+@pytest.mark.parametrize("field", [
+    "fused", "first_row", "text", "sa_stride", "n_arr"])
+def test_bmove_upload_matches_host(small_index, field):
+    from columba_jax.index.bmove import BMoveIndex, build_bmove_from_codes
+
+    genome, _ = small_index
+    arrays = build_bmove_from_codes(genome[:4000])
+    index = BMoveIndex.from_arrays(arrays)
+    u32 = lambda a: np.asarray(a, dtype=np.uint32)  # noqa: E731
+    if field == "fused":
+        host = u32(np.concatenate([arrays.fused_fwd, arrays.fused_rev]))
+    elif field == "text":
+        t = u32(arrays.text)
+        host = np.concatenate(
+            [t, np.zeros((-len(t)) % 128 + 128, np.uint32)]).reshape(-1, 128)
+    elif field == "n_arr":
+        host = u32([arrays.n, arrays.n + 1])
+    else:
+        host = u32(getattr(arrays, field))
+    dev = np.asarray(getattr(index, field))
+    assert dev.dtype == host.dtype and dev.shape == host.shape
+    assert np.array_equal(dev, host)

@@ -5,14 +5,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from columba_tpu.index.build import build_index_from_codes
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.ops import extend, locate, rank
+from columba_jax.index.build import build_index_from_codes
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.ops import extend, locate, rank
 
 
 def _sa_bwt(codes):
     """SA and BWT of codes+'$' via the (separately validated) fast SA."""
-    from columba_tpu.index.suffix import suffix_array
+    from columba_jax.index.suffix import suffix_array
 
     n = len(codes)
     text = np.concatenate([codes.astype(np.int16), [-1]])

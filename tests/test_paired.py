@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from columba_tpu.core import alphabet
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.search import paired, strategy
+from columba_jax.core import alphabet
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.search import paired, strategy
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_pair_inference(pe_setup):
 
 def test_pair_sam_emission(pe_setup):
     genome, arrays, index, r1, r2, positions, m, insert = pe_setup
-    from columba_tpu.io.fastq import ReadRecord
+    from columba_jax.io.fastq import ReadRecord
 
     pcfg = paired.PairedConfig(orientation="fr", min_insert=100,
                                max_insert=300, infer=False)
@@ -87,7 +87,7 @@ def repeat_pe_setup(rng):
     """Genome with 4 diverged copies of a 600 bp unit: pairs sampled from
     the unit multi-map with DIFFERENT total distances per locus — the
     workload that separates stratified PE BEST from PE ALL emission."""
-    from columba_tpu.index.build import build_index_from_codes
+    from columba_jax.index.build import build_index_from_codes
 
     unit = rng.integers(0, 4, size=600).astype(np.uint8)
     chunks = [rng.integers(0, 4, size=3000).astype(np.uint8), unit]

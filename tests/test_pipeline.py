@@ -11,10 +11,10 @@ small test genome:
 import numpy as np
 import pytest
 
-from columba_tpu.core import alphabet
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.search import pipeline, strategy
-from columba_tpu.search.scheme import get_scheme
+from columba_jax.core import alphabet
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.search import pipeline, strategy
+from columba_jax.search.scheme import get_scheme
 
 from tests.conftest import sample_reads
 
@@ -148,7 +148,7 @@ def test_naive_scheme_deep_k(rng):
     src/bitparallelmatrix.h:309-316). Small genome: the naive k=16
     frontier holds every SA range with bound <= k, so demand scales
     with n."""
-    from columba_tpu.index.build import build_index_from_codes
+    from columba_jax.index.build import build_index_from_codes
 
     from tests.conftest import make_genome
 
@@ -199,12 +199,12 @@ def test_kmer_table_and_seeded_matching(fm, rng):
     """Seed table entries equal naive ranges; seeded run == unseeded run."""
     import jax.numpy as jnp
 
-    from columba_tpu.index import kmer
+    from columba_jax.index import kmer
 
     genome, index = fm
     table = np.asarray(kmer.build_kmer_table(index))
     # spot-check a few kmers against exact_match
-    from columba_tpu.ops import extend as ext
+    from columba_jax.ops import extend as ext
 
     pats = []
     for _ in range(20):
@@ -232,7 +232,7 @@ def test_kmer_table_and_seeded_matching(fm, rng):
 def test_dynamic_scheme_selection(fm, rng):
     """Multi-scheme dynamic selection finds the same occurrence set as each
     single lossless scheme."""
-    from columba_tpu.search.scheme import get_multi_scheme
+    from columba_jax.search.scheme import get_multi_scheme
 
     genome, index = fm
     reads = sample_reads(rng, genome, num=10, length=72, max_err=2, edits=True)
@@ -251,7 +251,7 @@ def test_dynamic_scheme_selection(fm, rng):
 
 
 def test_columba_multi_scheme(fm, rng):
-    from columba_tpu.search.scheme import get_multi_scheme
+    from columba_jax.search.scheme import get_multi_scheme
 
     genome, index = fm
     reads = sample_reads(rng, genome, num=6, length=100, max_err=2, edits=True)
@@ -346,14 +346,14 @@ def test_in_text_crossover_equivalence(fm, rng, partitioning):
 def test_edit_all_short_parts_vs_brute(fm, rng, name, k, m):
     """Schemes whose parts are shorter than 2k+1 (multi-register colMin
     windows) must stay lossless and sound."""
-    from columba_tpu.search.scheme import load_scheme_folder
+    from columba_jax.search.scheme import load_scheme_folder
     import os as _os
 
     genome, index = fm
     if name == "greedy":
         scheme = load_scheme_folder(
             _os.path.join(_os.path.dirname(_os.path.dirname(
-                _os.path.abspath(__file__))), "columba_tpu", "..", "schemes",
+                _os.path.abspath(__file__))), "columba_jax", "..", "schemes",
                 "columba_greedy"), k)
     else:
         scheme = get_scheme(name, k)
@@ -451,7 +451,7 @@ def test_best_plus_x_semantics(fm):
     occurrence in [best, best+x] (the reference diverges here by design:
     its stratified loop emits such reads as unmapped,
     src/searchstrategy.cpp:676-744)."""
-    from columba_tpu.search import strategy
+    from columba_jax.search import strategy
 
     genome, index = fm
     # a read sampled exactly, with a planted 1-edit second occurrence
@@ -460,7 +460,7 @@ def test_best_plus_x_semantics(fm):
     g2 = genome.copy()
     g2[9000:9000 + m] = src
     g2[9000 + 25] = (src[25] + 1) % 4
-    from columba_tpu.index.build import build_index_from_codes
+    from columba_jax.index.build import build_index_from_codes
 
     idx2 = FMIndex.from_arrays(build_index_from_codes(g2))
     cfg = strategy.MappingConfig(scheme_name="kuch1", mode="best",
@@ -481,7 +481,7 @@ def test_cross_boundary_trimming(rng):
     """Occurrences straddling a concatenated-sequence boundary are trimmed
     (clip within k of the boundary + re-verify) or dropped, mirroring the
     reference's findSeqName (src/indexinterface.cpp:799-897)."""
-    from columba_tpu.index.build import build_index_from_codes
+    from columba_jax.index.build import build_index_from_codes
 
     g = rng.integers(0, 4, size=8000).astype(np.uint8)
     starts = np.array([0, 4000, 8000], dtype=np.int64)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from columba_tpu.search import schedule
-from columba_tpu.search.scheme import (
+from columba_jax.search import schedule
+from columba_jax.search.scheme import (
     BACKWARD,
     FORWARD,
     Search,
@@ -50,7 +50,7 @@ def test_bundled_schemes_lossless(name, k):
 
 
 def test_invalid_scheme_detected():
-    from columba_tpu.search.scheme import SearchScheme
+    from columba_jax.search.scheme import SearchScheme
 
     # pigeonhole missing one search cannot cover all distributions
     full = pigeonhole_scheme(2)
@@ -113,9 +113,9 @@ def test_static_partitioning_files():
 def test_static_partition_conformance(rng):
     import numpy as np
 
-    from columba_tpu.index.build import build_index_from_codes
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.search import pipeline
+    from columba_jax.index.build import build_index_from_codes
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.search import pipeline
     from tests.conftest import make_genome, sample_reads
 
     g = make_genome(np.random.default_rng(9), 8000)
@@ -137,7 +137,7 @@ def test_manbest_and_suffix_filter_bundled():
     reproduction, search_schemes/*_adapted)."""
     import os
 
-    from columba_tpu.search.scheme import _SCHEME_DIR
+    from columba_jax.search.scheme import _SCHEME_DIR
 
     mb = get_scheme("manbest", 4)
     assert mb.k == 4 and len(mb.searches) == 5
@@ -152,7 +152,7 @@ def test_manbest_and_suffix_filter_bundled():
 
 
 def test_manbest_schedule_compiles():
-    from columba_tpu.search import schedule
+    from columba_jax.search import schedule
 
     sched = schedule.compile_schedule(get_scheme("manbest", 4), 100,
                                       metric="edit")

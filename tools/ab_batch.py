@@ -35,7 +35,7 @@ def main():
     results = {}
     for b in sizes:
         bench.BATCH = b
-        rate = bench.measure_tpu(arrays, reads)
+        rate = bench.measure_device(arrays, reads)
         results[b] = rate
         print(f"BATCH={b:6d}  {rate / 1e3:8.1f}k reads/s", flush=True)
     best = max(results, key=results.get)

@@ -1,4 +1,4 @@
-"""A/B the two-stage exact loop (ex_split) and dense-SA locate on TPU."""
+"""A/B the two-stage exact loop (ex_split) and dense-SA locate on the GPU."""
 
 from __future__ import annotations
 
@@ -18,11 +18,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu.core import alphabet
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.index.kmer import build_kmer_table, table_k
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.core import alphabet
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.index.kmer import build_kmer_table, table_k
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, reads = bench.build_workload()
     arrays = bench.build_index_cached(genome)

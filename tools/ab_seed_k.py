@@ -1,4 +1,4 @@
-"""A/B the seed-table K (12 vs 13) on the bench workload (real TPU).
+"""A/B the seed-table K (12 vs 13) on the bench workload (GPU).
 
 K=13 (dense 4^13 x 4 int32 = 1GB HBM) opens the in-text drain gate at
 step 2 and kills junk lanes ~1 step earlier than K=12; this measures
@@ -23,11 +23,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu.core import alphabet
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.index.kmer import build_kmer_table, table_k
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.core import alphabet
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.index.kmer import build_kmer_table, table_k
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, reads = bench.build_workload()
     arrays = bench.build_index_cached(genome)

@@ -1,4 +1,4 @@
-"""End-to-end benchmark matrix on the real TPU — the BASELINE.md plan.
+"""End-to-end benchmark matrix on the GPU — the BASELINE.md plan.
 
 Runs the COMPLETE CLI pipeline (FASTQ -> SAM on disk) for a matrix of
 configs that actually exercise the different engine phases (exact path,
@@ -9,7 +9,7 @@ inputs for context (single thread; this box has 4 cores, the reference
 scales ~linearly with -t).
 
 Usage:
-  python tools/bench_matrix.py [--reads 100000] [--out docs/PERF_matrix.md]
+  python tools/bench_matrix.py [--reads 100000] [--out matrix.md]
   python tools/bench_matrix.py --configs exact_k0,edit4_all  # subset
 
 Writes a markdown table (stdout + --out) with reads/s, % mapped, and the
@@ -32,7 +32,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 
-CACHE = "/tmp/columba_tpu_bench"
+CACHE = "/tmp/columba_jax_bench"
 REF_BIN = "/tmp/colbuild/columba"
 
 CONFIGS = {
@@ -98,7 +98,7 @@ def ensure_workload(n_reads: int, pan: bool = False):
         genome = pan_genome()
         idx_dir = os.path.join(CACHE, "idx_pan_s1.cidx")
         if not os.path.exists(os.path.join(idx_dir, "meta.json")):
-            from columba_tpu.index.build import (
+            from columba_jax.index.build import (
                 build_index_from_codes, save_index)
 
             save_index(build_index_from_codes(genome, sa_sparseness=1),
@@ -106,7 +106,7 @@ def ensure_workload(n_reads: int, pan: bool = False):
     else:
         genome, _ = bench.build_workload()
         bench.build_index_cached(genome)
-    from columba_tpu.core import alphabet
+    from columba_jax.core import alphabet
 
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     m = bench.READ_LEN
@@ -150,7 +150,7 @@ def ensure_workload(n_reads: int, pan: bool = False):
 
 def run_config(name: str, spec: dict, fq, fq1, fq2, batch: int,
                pan: bool = False):
-    from columba_tpu import cli
+    from columba_jax import cli
 
     idx = os.path.join(CACHE, "idx_pan_s1.cidx" if pan else "idx_s1.cidx")
     out = os.path.join(CACHE, f"matrix_{name}.sam")
@@ -204,7 +204,7 @@ def ensure_ref_pan_index() -> bool:
         return False
     import numpy as np
 
-    from columba_tpu.core import alphabet
+    from columba_jax.core import alphabet
 
     os.makedirs(wd, exist_ok=True)
     fa = os.path.join(wd, "genome.fa")
@@ -269,7 +269,7 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    from columba_tpu import compile_cache
+    from columba_jax import compile_cache
 
     compile_cache.enable()
     fq, fq1, fq2 = ensure_workload(args.reads, pan=args.pan)
@@ -288,7 +288,7 @@ def main():
         rows.append(r)
         print(json.dumps(r), file=sys.stderr)
 
-    hdr = ("| config | reads | TPU reads/s | ref reads/s (1 thread) | "
+    hdr = ("| config | reads | GPU reads/s | ref reads/s (1 thread) | "
            "speedup | % mapped | searches started | spill retries |\n"
            "|---|---|---|---|---|---|---|---|\n")
     body = "".join(

@@ -1,4 +1,4 @@
-"""RLC (b-move) backend throughput at bench scale on the real TPU.
+"""RLC (b-move) backend throughput at bench scale on the GPU.
 
 Same workload/config as bench.py but on the run-length-compressed index
 (no in-text crossover: the RLC index stores no text, matching the
@@ -14,7 +14,7 @@ run length; comparing this mode's reads/s against the default random
 genome (maximally short runs) is the measurement that locate cost is
 independent of run length. Reference contrast: toehold + phi-walk bounded
 by PLCP (src/bmove/bmove.cpp:503-547, src/bmove/plcp.h:59-130) — a
-sequential pointer chase per occurrence list that batches poorly on TPU.
+sequential pointer chase per occurrence list that batches poorly on a lockstep device.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench  # noqa: E402
 
-CACHE = "/tmp/columba_tpu_bench/bmove.cidx"
-PAN_CACHE = "/tmp/columba_tpu_bench/bmove_pan.cidx"
+CACHE = "/tmp/columba_jax_bench/bmove.cidx"
+PAN_CACHE = "/tmp/columba_jax_bench/bmove_pan.cidx"
 HAPLOTYPES = 20
 DIVERGENCE = 0.001
 
@@ -51,7 +51,7 @@ def pan_workload():
     nreads = bench.NUM_READS
     starts = rng.integers(0, len(genome) - bench.READ_LEN - 8, size=nreads)
     reads = np.zeros((nreads, bench.READ_LEN), dtype=np.uint8)
-    from columba_tpu.core import alphabet
+    from columba_jax.core import alphabet
 
     for i, s in enumerate(starts):
         seq = genome[s:s + bench.READ_LEN].copy()
@@ -68,10 +68,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu.index.bmove import (
+    from columba_jax.index.bmove import (
         BMoveIndex, build_bmove_from_codes, load_bmove, save_bmove)
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     pan = "--pan" in sys.argv
     cache = PAN_CACHE if pan else CACHE

@@ -17,7 +17,7 @@ Reference contrast: the reference RLC default likewise emits no CIGARs
 settings its users get.
 
 Run: python tools/bench_rlc_e2e.py [--reads 100000] [--flavors v,r,t]
-Prints one markdown table + one JSON line for docs/PERF.md.
+Prints one markdown table + one JSON line.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 sys.path.insert(0, HERE)
 
-CACHE = "/tmp/columba_tpu_bench"
+CACHE = "/tmp/columba_jax_bench"
 
 
 def du(path: str) -> int:
@@ -56,8 +56,8 @@ def main():
 
     from bench_matrix import ensure_workload
 
-    from columba_tpu import cli, compile_cache
-    from columba_tpu.core import alphabet
+    from columba_jax import cli, compile_cache
+    from columba_jax.core import alphabet
 
     compile_cache.enable()
     fq, _, _ = ensure_workload(args.reads, pan=True)

@@ -3,7 +3,7 @@
 Proves the uint32 index path above the old 2^31 ceiling (VERDICT round-1
 item 1; reference 64-bit mode: src/definitions.h:69-75,
 src/buildindex.cpp:479-538): builds a multi-sequence genome larger than
-2^31 bases, indexes it (native SA-IS, chunked packing), loads it on the TPU,
+2^31 bases, indexes it (native SA-IS, chunked packing), loads it on the GPU,
 maps sampled reads at k=2 edit, and checks recall/soundness against the
 known sampled positions.
 
@@ -16,7 +16,7 @@ Usage:
 
 The genome and index persist under --cache; a second run skips the build
 and only measures alignment. Results are appended to the stdout summary for
-docs/PERF.md.
+PERF.md.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def main():
     if args.blocks:
         return main_blocks(args)
 
-    from columba_tpu.index.build import (
+    from columba_jax.index.build import (
         build_index_from_codes, load_index, save_index,
     )
 
@@ -96,8 +96,8 @@ def main():
         return
 
     # sample reads from the packed text (works for both fresh + cached runs)
-    from columba_tpu.core import alphabet
-    from columba_tpu.index.build import unpack_2bit
+    from columba_jax.core import alphabet
+    from columba_jax.index.build import unpack_2bit
 
     rng = np.random.default_rng(7)
     m = args.read_len
@@ -124,9 +124,9 @@ def main():
 
     import jax
 
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     t2 = time.time()
     index = FMIndex.from_arrays(arrays)
@@ -167,8 +167,8 @@ def main_blocks(args):
     against sampled truth. This is the at-scale run tests/test_blocked.py
     exercises at small scale (reference: 64-bit + Big-BWT regime,
     src/definitions.h:69-75, src/bmove/columba_build_pfp.sh)."""
-    from columba_tpu.index import blocked
-    from columba_tpu.index.build import MAX_N, unpack_window
+    from columba_jax.index import blocked
+    from columba_jax.index.build import MAX_N, unpack_window
 
     n_total = int(args.gbp * 1e9)
     os.makedirs(args.cache, exist_ok=True)
@@ -209,7 +209,7 @@ def main_blocks(args):
     starts_pos = rng.integers(0, n_total - m - 8, size=R)
     bad = (starts_pos % CHROMO) > (CHROMO - m - 8)
     starts_pos[bad] -= m + 8
-    from columba_tpu.core import alphabet
+    from columba_jax.core import alphabet
 
     fq = os.path.join(args.cache, f"blk_{n_total}_reads.fq")
     truth = []
@@ -225,7 +225,7 @@ def main_blocks(args):
             f.write(f"@r{i}\n{lut[seq].tobytes().decode()}\n+\n{'I' * m}\n")
             truth.append(int(s))
 
-    from columba_tpu import cli
+    from columba_jax import cli
 
     out = os.path.join(args.cache, f"blk_{n_total}_out.sam")
     t3 = time.time()
@@ -239,7 +239,7 @@ def main_blocks(args):
     import re
 
     seq_off = {}  # seq name -> global offset
-    from columba_tpu.index.blocked import make_view
+    from columba_jax.index.blocked import make_view
 
     view = make_view(idx_dir, meta)
     for name, off in zip(view.seq_names, view.seq_starts[:-1]):

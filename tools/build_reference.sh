@@ -6,7 +6,7 @@
 # fmtlib; git submodules: libdivsufsort, Big-BWT). This script patches a
 # writable copy to:
 #   - back the libsais/divsufsort API with our own SA-IS
-#     (columba_tpu/native/sais.cpp),
+#     (columba_jax/native/sais.cpp),
 #   - replace parallel-hashmap with std::unordered_map/std::map shims,
 #   - use the fmt headers bundled with the torch wheel (header-only).
 #
@@ -90,7 +90,7 @@ extern "C" saint_t divsufsort64(const uint8_t* T, int64_t* SA, int64_t n) {
 }
 EOF
 
-cp "$REPO/columba_tpu/native/sais.cpp" "$WORK/shim/"
+cp "$REPO/columba_jax/native/sais.cpp" "$WORK/shim/"
 
 cat > "$WORK/shim/parallel_hashmap/phmap.h" <<'EOF'
 #pragma once

@@ -4,12 +4,12 @@ import numpy as np, sys
 sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(__import__("os").path.abspath(__file__))))
 from tests.test_pipeline import brute_edit_ends, brute_hamming
 from tests.conftest import make_genome
-from columba_tpu.core import alphabet
-from columba_tpu.index.build import build_index_from_codes
-from columba_tpu.index.fmindex import FMIndex
-from columba_tpu.index.kmer import build_kmer_table
-from columba_tpu.search import pipeline
-from columba_tpu.search.scheme import get_scheme
+from columba_jax.core import alphabet
+from columba_jax.index.build import build_index_from_codes
+from columba_jax.index.fmindex import FMIndex
+from columba_jax.index.kmer import build_kmer_table
+from columba_jax.search import pipeline
+from columba_jax.search.scheme import get_scheme
 
 fails = 0
 trials = 0

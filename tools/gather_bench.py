@@ -1,43 +1,26 @@
-"""Row-gather strategy shootout on the real TPU.
+"""Row-gather sweep on the GPU.
 
-The frontier executor's cost is ~100% random row gathers from the occ
-table (48B rows, ~1M rows). This measures, with honest value-fetch
-fencing and LF-style chained dependencies (next indices depend on the
+The frontier executor's cost is dominated by random row gathers from the
+occ table (64B rows today; 48B before padding, ROADMAP C1). This measures
+XLA's gather with LF-style chained dependencies (next indices depend on the
 previous gather, as in real FM extension):
 
-  1. XLA gather at several row widths (are 128B-aligned rows faster?)
-  2. XLA gather at several lane counts (does parallelism scale?)
-  3. Pallas per-row DMA gather (double-buffered chunks, semaphore ring)
+  1. at several row widths (do aligned 64B rows beat 48B rows?)
+  2. at several lane counts (does parallelism scale?)
 
 Usage: python tools/gather_bench.py
 """
 
 from __future__ import annotations
 
-import functools
 import os
 import sys
-import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def timed_chain(fn, *args, iters=3):
-    import jax
-    import jax.numpy as jnp
-
-    out = fn(*args)  # compile
-    float(jnp.ravel(jax.tree_util.tree_leaves(out)[0])[0].astype(jnp.float32))
-    tot = jnp.zeros((), jnp.float32)
-    t0 = time.time()
-    for _ in range(iters):
-        out = fn(*args)
-        leaf = jax.tree_util.tree_leaves(out)[0]
-        tot = tot + jnp.ravel(leaf)[0].astype(jnp.float32)
-    float(tot)
-    return (time.time() - t0) / iters
+from tools._bench_util import timed  # noqa: E402
 
 
 def main():
@@ -50,14 +33,13 @@ def main():
 
     print("devices:", jax.devices(), file=sys.stderr)
 
-    # ---------------- 1+2) XLA gather: width x lanes sweep ----------------
     for W in (12, 16, 32):
         table = jnp.asarray(
             rng.integers(0, 1 << 30, size=(NROWS, W)).astype(np.uint32))
         for LG in (15, 17, 19):
             L = 1 << LG
 
-            @functools.partial(jax.jit, static_argnums=())
+            @jax.jit
             def chain(tbl, idx0):
                 def body(i, idx):
                     rows = tbl[idx]                      # (L, W) row gather
@@ -68,88 +50,10 @@ def main():
 
             idx0 = jnp.asarray(
                 rng.integers(0, NROWS, size=L).astype(np.int32))
-            dt = timed_chain(chain, table, idx0) / STEPS
+            dt = timed(chain, table, idx0, iters=3) / STEPS
             print(f"xla  W={W:2d}u32 ({W*4:3d}B) L={L:6d}: "
                   f"{L/dt/1e6:8.1f} Mrows/s  {L*W*4/dt/1e9:6.1f} GB/s "
                   f"({dt*1e3:.3f} ms/step)")
-
-    # ---------------- 3) pallas DMA gather ----------------
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    W = 16           # 64B rows for the pallas test
-    CHUNK = 512      # rows per grid step
-    NSEM = 16        # outstanding DMAs
-    table = jnp.asarray(
-        rng.integers(0, 1 << 30, size=(NROWS, W)).astype(np.uint32))
-
-    def gather_kernel(idx_ref, tbl_ref, out_ref, scratch, sems):
-        c = pl.program_id(0)
-
-        def issue(i, _):
-            r = idx_ref[c * CHUNK + i]
-            pltpu.make_async_copy(
-                tbl_ref.at[r], scratch.at[i % NSEM], sems.at[i % NSEM]
-            ).start()
-            return _
-
-        def harvest(i, _):
-            pltpu.make_async_copy(
-                tbl_ref.at[0], scratch.at[i % NSEM], sems.at[i % NSEM]
-            ).wait()
-            out_ref[i, :] = scratch[i % NSEM]
-            return _
-
-        # window of NSEM outstanding DMAs: issue i+NSEM, wait+copy i
-        def body(i, _):
-            @pl.when(i + NSEM < CHUNK)
-            def _():
-                issue(i + NSEM, None)
-            harvest(i, None)
-            return _
-
-        jax.lax.fori_loop(0, min(NSEM, CHUNK), issue, None)
-        jax.lax.fori_loop(0, CHUNK, body, None)
-
-    def pallas_gather(tbl, idx):
-        L = idx.shape[0]
-        return pl.pallas_call(
-            gather_kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=1,
-                grid=(L // CHUNK,),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)],
-                out_specs=pl.BlockSpec(
-                    (CHUNK, W), lambda c, idx: (c, 0),
-                    memory_space=pltpu.VMEM),
-                scratch_shapes=[
-                    pltpu.VMEM((NSEM, W), jnp.uint32),
-                    pltpu.SemaphoreType.DMA((NSEM,)),
-                ],
-            ),
-            out_shape=jax.ShapeDtypeStruct((L, W), jnp.uint32),
-        )(idx, tbl)
-
-    for LG in (15, 17, 19):
-        L = 1 << LG
-
-        @jax.jit
-        def chain_p(tbl, idx0):
-            def body(i, idx):
-                rows = pallas_gather(tbl, idx)
-                return (rows[:, 0]
-                        + rows[:, W - 1]).astype(jnp.int32) % NROWS
-            return jax.lax.fori_loop(0, STEPS, body, idx0)
-
-        idx0 = jnp.asarray(rng.integers(0, NROWS, size=L).astype(np.int32))
-        try:
-            dt = timed_chain(chain_p, table, idx0) / STEPS
-            print(f"plas W={W:2d}u32 ({W*4:3d}B) L={L:6d}: "
-                  f"{L/dt/1e6:8.1f} Mrows/s  {L*W*4/dt/1e9:6.1f} GB/s "
-                  f"({dt*1e3:.3f} ms/step)")
-        except Exception as e:  # noqa: BLE001
-            print(f"plas L={L}: FAILED {type(e).__name__}: {e}")
-            break
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Two-process multi-host dryrun: jax.distributed + gloo on CPU meshes.
 
-Validates the full multi-host story (columba_tpu/dist/multihost.py) with
+Validates the full multi-host story (columba_jax/dist/multihost.py) with
 two local processes, 4 virtual devices each (8-device global data mesh):
 
   1. both processes initialize jax.distributed against a local coordinator,
@@ -50,16 +50,16 @@ def worker(proc_id: int) -> int:
 
     # initialize the distributed runtime BEFORE importing anything that
     # touches the XLA backend (some modules build jnp constants at import)
-    from columba_tpu.dist import multihost
+    from columba_jax.dist import multihost
 
     multihost.initialize(COORD, NPROC, proc_id, cpu_gloo=True)
 
-    from columba_tpu.core import alphabet
-    from columba_tpu.dist import mesh as dmesh
-    from columba_tpu.index.build import build_index_from_codes
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.core import alphabet
+    from columba_jax.dist import mesh as dmesh
+    from columba_jax.index.build import build_index_from_codes
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     mesh = multihost.global_mesh()
     assert len(jax.devices()) == NPROC * DEV_PER_PROC

@@ -33,7 +33,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 COORD_PORT = 49741
 # 2 virtual devices per host so the 2-host config still fits a 4-core
-# box. Measured (docs/PERF.md round-4 section): the per-host rate scales
+# box. Measured on the CPU harness: the per-host rate scales
 # ~linearly with MH_READS_PER_HOST in both configs, so the harness times
 # per-step FIXED cost (gloo collective latency + dispatch), ~1.5x higher
 # at 2 hosts -> efficiency plateaus ~0.65 on CPU regardless of step
@@ -58,17 +58,17 @@ def worker(n_hosts: int, proc_id: int) -> int:
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from columba_tpu.dist import multihost
+    from columba_jax.dist import multihost
 
     multihost.initialize(f"127.0.0.1:{COORD_PORT + n_hosts}", n_hosts,
                          proc_id, cpu_gloo=True)
 
-    from columba_tpu.core import alphabet
-    from columba_tpu.dist import mesh as dmesh
-    from columba_tpu.index.build import build_index_from_codes
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.search import pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.core import alphabet
+    from columba_jax.dist import mesh as dmesh
+    from columba_jax.index.build import build_index_from_codes
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.search import pipeline
+    from columba_jax.search.scheme import get_scheme
 
     mesh = multihost.global_mesh()
     rng = np.random.default_rng(777)

@@ -3,7 +3,7 @@
 Splits device time into: exact prefix, frontier scan (run_scheme), and
 the locate+verify tail (full match_device_core minus run_scheme), across
 capacities — to expose overflow-retry costs and the per-step weight.
-Run on the real TPU: python tools/profile_band.py [--k 4] [--batch 16384]
+Run on the GPU: python tools/profile_band.py [--k 4] [--batch 16384]
 """
 
 from __future__ import annotations
@@ -52,11 +52,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu import compile_cache
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.index.kmer import build_kmer_table, table_k
-    from columba_tpu.search import executor, pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax import compile_cache
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.index.kmer import build_kmer_table, table_k
+    from columba_jax.search import executor, pipeline
+    from columba_jax.search.scheme import get_scheme
 
     compile_cache.enable()
     genome, reads_np = bench.build_workload()

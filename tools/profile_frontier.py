@@ -44,11 +44,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.index.kmer import build_kmer_table, table_k
-    from columba_tpu.ops import extend
-    from columba_tpu.search import executor, pipeline
-    from columba_tpu.search.scheme import get_scheme
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.index.kmer import build_kmer_table, table_k
+    from columba_jax.ops import extend
+    from columba_jax.search import executor, pipeline
+    from columba_jax.search.scheme import get_scheme
 
     genome, reads_np = bench.build_workload()
     arrays = bench.build_index_cached(genome)
@@ -73,7 +73,7 @@ def main():
     # ---- phase 1 probe: the exact-prefix while_loop exactly as run_scheme
     def exact_probe(idx, rd, kt, tbl):
         rid0 = jnp.repeat(jnp.arange(R, dtype=jnp.int32), S)
-        from columba_tpu.index import kmer as kmer_mod
+        from columba_jax.index import kmer as kmer_mod
 
         kstart = jnp.tile(tbl["kmer_start"], R)
         offs = jnp.arange(sched.kmer_k, dtype=jnp.int32)

@@ -6,7 +6,7 @@ Times T-step scans of increasing step-body subsets:
   c) b + colMin registers + prune bound
   d) c + pack + compact (the full structural step, minus meta decode)
   e) the real run_scheme (reference point)
-Run on the real TPU: python tools/profile_step.py
+Run on the GPU: python tools/profile_step.py
 """
 
 from __future__ import annotations
@@ -48,11 +48,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu import compile_cache
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.ops import extend
-    from columba_tpu.search import executor
-    from columba_tpu.search.executor import _band_row_update
+    from columba_jax import compile_cache
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.ops import extend
+    from columba_jax.search import executor
+    from columba_jax.search.executor import _band_row_update
 
     compile_cache.enable()
     genome, reads_np = bench.build_workload()

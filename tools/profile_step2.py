@@ -8,7 +8,7 @@ Variants (cumulative unless noted):
   d_u) d with unique_indices=True scatters
   d_s) d with sort-based compaction (lax.sort_key_val) instead of scatter
   e) d + harvest-style scatter           (the full structural step)
-Run on the real TPU: python tools/profile_step2.py
+Run on the GPU: python tools/profile_step2.py
 """
 
 from __future__ import annotations
@@ -50,11 +50,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from columba_tpu import compile_cache
-    from columba_tpu.index.fmindex import FMIndex
-    from columba_tpu.ops import extend
-    from columba_tpu.search import executor
-    from columba_tpu.search.executor import INF, _band_row_update
+    from columba_jax import compile_cache
+    from columba_jax.index.fmindex import FMIndex
+    from columba_jax.ops import extend
+    from columba_jax.search import executor
+    from columba_jax.search.executor import INF, _band_row_update
 
     compile_cache.enable()
     genome, _ = bench.build_workload()
